@@ -1,4 +1,4 @@
-// gmpnp_tpu native runtime: mesh/graph preprocessing engine.
+// gmpnp native runtime: mesh/graph preprocessing engine.
 //
 // The reference leans on dolfin's C++ core for mesh storage, connectivity
 // and IO (SURVEY.md §2b).  In this framework the *compute* path is
@@ -8,7 +8,7 @@
 // pointer-chasing work that a Python loop does 100-1000x slower on the
 // large meshes this framework targets.
 //
-// Plain C ABI; consumed from Python via ctypes (gmpnp_tpu/native.py).
+// Plain C ABI; consumed from Python via ctypes (gmpnp/native.py).
 // All index arrays are int32, coordinates double.
 
 #include <algorithm>

@@ -1,8 +1,8 @@
 """Test configuration: run everything on a virtual 8-device CPU mesh.
 
-Multi-chip hardware is not available in CI; sharding correctness is validated
-on XLA:CPU with forced host device count (the driver separately dry-runs the
-multi-chip path via __graft_entry__.dryrun_multichip).
+Sharding correctness is validated on XLA:CPU with a forced host device
+count.  Tests marked ``gpu`` need a card; they skip here and run on a GPU
+host with ``GMPNP_TEST_ACCEL=1 python -m pytest -m gpu tests/``.
 """
 
 import os
@@ -23,18 +23,17 @@ os.environ["XLA_FLAGS"] = flags
 
 import jax  # noqa: E402
 
-# The environment may pre-register an accelerator platform; tests always run
-# on the virtual 8-device CPU mesh unless explicitly opted out.
+# Tests run on the virtual 8-device CPU mesh unless GMPNP_TEST_ACCEL is set
+# (the gpu-marked tests on a card).
 if not os.environ.get("GMPNP_TEST_ACCEL"):
     jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
-# Session-scoped XLA compile cache (VERDICT r4 item 8: the cold suite is
-# compile-dominated).  Distinct tests independently build IDENTICAL
-# programs (same model config + mesh + step count); the persistent cache
-# dedupes those by HLO hash within one run.  A fresh temp dir per session
-# keeps it honest on a cold host and avoids committing machine-specific
-# CPU AOT artifacts (which can SIGILL across hosts — __graft_entry__.py).
+# Session-scoped XLA compile cache (the cold suite is compile-dominated).
+# Distinct tests independently build IDENTICAL programs (same model config
+# + mesh + step count); the persistent cache dedupes those by HLO hash
+# within one run.  A fresh temp dir per session keeps it honest on a cold
+# host and leaves no machine-specific CPU AOT artifacts behind.
 # Set GMPNP_TEST_COMPILE_CACHE=<dir> for a persistent local cache during
 # development iteration.
 import tempfile  # noqa: E402
@@ -58,3 +57,15 @@ def reference_utilities():
     if not p.exists():
         pytest.skip("reference data not mounted")
     return p
+
+
+@pytest.fixture(scope="session")
+def gpu_device():
+    """The first GPU, or skip: tests marked ``gpu`` need a card."""
+    try:
+        gpus = jax.devices("gpu")
+    except RuntimeError:
+        gpus = []
+    if not gpus:
+        pytest.skip("needs a GPU (GMPNP_TEST_ACCEL=1 on a card)")
+    return gpus[0]

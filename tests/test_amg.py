@@ -10,17 +10,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gmpnp_tpu.fem import DirichletBC, FemSpace, WeakForm
-from gmpnp_tpu.mesh import cylinder_mesh, uniform_interval_mesh
-from gmpnp_tpu.solve import gmres
-from gmpnp_tpu.solve.amg import (
+from gmpnp.fem import DirichletBC, FemSpace, WeakForm
+from gmpnp.mesh import cylinder_mesh, uniform_interval_mesh
+from gmpnp.solve import gmres
+from gmpnp.solve.amg import (
     AMGPlan,
     aggregate_vertices,
     amg_preconditioner,
     galerkin_coarse,
 )
-from gmpnp_tpu.solve.linear import block_jacobi_preconditioner
-from gmpnp_tpu.solve.timeloop import LinearConfig, make_linear_solver
+from gmpnp.solve.linear import block_jacobi_preconditioner
+from gmpnp.solve.timeloop import LinearConfig, make_linear_solver
 
 
 def _poisson_system(mesh, f=3, shift=1.0):

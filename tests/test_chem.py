@@ -8,14 +8,14 @@ integration must reproduce their values.
 import numpy as np
 import pytest
 
-from gmpnp_tpu.chem import (
+from gmpnp.chem import (
     buffer_rates,
     co2_saturation_conc,
     equilibrate_electrolyte,
 )
-from gmpnp_tpu.chem.bulk import load_bulk_yaml
-from gmpnp_tpu.chem.reactions import BufferKinetics
-from gmpnp_tpu.constants import DEFAULT_PARAMS, DIFF_COEF, RateConstants
+from gmpnp.chem.bulk import load_bulk_yaml
+from gmpnp.chem.reactions import BufferKinetics
+from gmpnp.constants import DEFAULT_PARAMS, DIFF_COEF, RateConstants
 
 
 def test_henry_co2_no_ions():
@@ -81,7 +81,7 @@ def test_buffer_rates_match_reference_expressions():
 
 
 def test_carbon_conservation_in_0d_kinetics():
-    from gmpnp_tpu.chem.reactions import kinetics_0d
+    from gmpnp.chem.reactions import kinetics_0d
     import jax.numpy as jnp
 
     y = jnp.array([97.0, 0.002, 1.1, 1.2])
@@ -108,7 +108,7 @@ def test_equilibrate_matches_reference_yaml(reference_utilities, conc):
 
 
 def test_bulk_yaml_roundtrip(tmp_path):
-    from gmpnp_tpu.chem.bulk import write_bulk_yaml
+    from gmpnp.chem.bulk import write_bulk_yaml
 
     sol = equilibrate_electrolyte(conc=0.1)
     p = tmp_path / "bulk_soln_0.1KHCO3.yaml"

@@ -2,9 +2,9 @@
 
 import pytest
 
-from gmpnp_tpu.config import dump_config, load_config
-from gmpnp_tpu.models.edl_1d import EDL1DConfig
-from gmpnp_tpu.models.pore_3d import Pore3DConfig
+from gmpnp.config import dump_config, load_config
+from gmpnp.models.edl_1d import EDL1DConfig
+from gmpnp.models.pore_3d import Pore3DConfig
 
 
 def test_yaml_roundtrip(tmp_path):

@@ -15,7 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gmpnp_tpu.models import edl_1d
+from gmpnp.models import edl_1d
 
 
 def equilibrium_cfg(model):
@@ -190,7 +190,7 @@ def test_supg_faithful_vs_corrected_both_run():
 
 def test_steric_clip_inactive_at_benign_states():
     """The conditioning clamp (steric_clip) must not alter solutions on the
-    Newton path — it only guards off-manifold iterates (docs/TPU_NOTES.md)."""
+    Newton path — it only guards off-manifold iterates."""
     import dataclasses
 
     base = edl_1d.EDL1DConfig(L_n=1.0e-6, model="MPNP", dry_run=True)

@@ -9,13 +9,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gmpnp_tpu.fem import DirichletBC, FemSpace, WeakForm
-from gmpnp_tpu.fem.elements import (
+from gmpnp.fem import DirichletBC, FemSpace, WeakForm
+from gmpnp.fem.elements import (
     physical_gradients,
     simplex_quadrature,
 )
-from gmpnp_tpu.mesh import cylinder_mesh, pore_boundary_markers, uniform_interval_mesh
-from gmpnp_tpu.mesh.core import facet_measures
+from gmpnp.mesh import cylinder_mesh, pore_boundary_markers, uniform_interval_mesh
+from gmpnp.mesh.core import facet_measures
 
 
 # ---------------------------------------------------------------------------
@@ -110,7 +110,7 @@ def test_volume_integral_cylinder():
     form = WeakForm(1, lambda u, gu, up, x, th: (jnp.ones(1), jnp.zeros((1, 3))))
     u = jnp.zeros((m.num_vertices, 1))
     r = sp.residual(form, u, u, None)
-    from gmpnp_tpu.mesh.core import cell_measures
+    from gmpnp.mesh.core import cell_measures
     assert float(r.sum()) == pytest.approx(
         cell_measures(m.points, m.cells).sum(), rel=1e-12)
 
@@ -234,7 +234,7 @@ def test_set_value_masked_equals_set_value():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from gmpnp_tpu.fem import DirichletBC
+    from gmpnp.fem import DirichletBC
 
     bc = DirichletBC.from_vertex_sets(
         10, 3, [(np.array([0, 3, 7]), 1, 2.5), (np.array([9]), 0, -1.0)])
@@ -256,14 +256,13 @@ def test_set_value_masked_equals_set_value():
 
 
 def test_arith_bc_equals_dirichlet_bc():
-    """ArithDirichletBC (pure multiply-add application — the TPU
-    sweep-safe form: the where/select blend kernel-faults under vmap at
-    reference mesh size, probes/probe_r3_a.py) is semantically identical
-    to DirichletBC on every operation."""
+    """ArithDirichletBC (pure multiply-add application, the sweep form
+    without a where/select blend) is semantically identical to
+    DirichletBC on every operation."""
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from gmpnp_tpu.fem import DirichletBC
+    from gmpnp.fem import DirichletBC
 
     m = uniform_interval_mesh(7)
     m = m.with_markers(np.zeros(len(m.facets), dtype=np.int32))

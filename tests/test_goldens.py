@@ -11,7 +11,7 @@ import os
 import numpy as np
 import pytest
 
-from gmpnp_tpu.testing import GoldenFile, field_summary, rel_l2
+from gmpnp.testing import GoldenFile, field_summary, rel_l2
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 
@@ -29,7 +29,7 @@ def test_rel_l2():
 
 
 def test_golden_rxn_diff_1d():
-    from gmpnp_tpu.models import rxn_diff_1d as rd
+    from gmpnp.models import rxn_diff_1d as rd
 
     prog = rd.build(rd.RxnDiff1DConfig(L_n=1.0e-6))
     _, hist, stats = prog.run(n_steps=5)
@@ -41,7 +41,7 @@ def test_golden_rxn_diff_1d():
 
 
 def test_golden_edl_1d_mpnp():
-    from gmpnp_tpu.models import edl_1d
+    from gmpnp.models import edl_1d
 
     prog = edl_1d.build(edl_1d.EDL1DConfig(L_n=1.0e-6, dry_run=True))
     _, hist, stats, _ = prog.run(n_steps=5)
@@ -54,7 +54,7 @@ def test_golden_edl_1d_mpnp():
 
 
 def test_golden_pore_3d_gmpnp():
-    from gmpnp_tpu.models import pore_3d
+    from gmpnp.models import pore_3d
 
     prog = pore_3d.build(pore_3d.Pore3DConfig(
         physics="GMPNP", mesh_resolution=(2, 10)))
@@ -69,7 +69,7 @@ def test_golden_pore_3d_gmpnp():
 
 
 def test_golden_pore_3d_rxn_diff():
-    from gmpnp_tpu.models import pore_3d
+    from gmpnp.models import pore_3d
 
     prog = pore_3d.build(pore_3d.Pore3DConfig(
         physics="rxn_diff", mesh_resolution=(2, 10)))
@@ -81,7 +81,7 @@ def test_golden_pore_3d_rxn_diff():
 
 
 def test_golden_stern():
-    from gmpnp_tpu.models import stern
+    from gmpnp.models import stern
 
     out = stern.run(write=False)
     data = {str(v): {"voltage_electrode": r["voltage_electrode"],

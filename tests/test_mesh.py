@@ -10,7 +10,7 @@ import os
 import numpy as np
 import pytest
 
-from gmpnp_tpu.mesh import (
+from gmpnp.mesh import (
     Mesh,
     cell_measures,
     cylinder_mesh,
@@ -22,7 +22,7 @@ from gmpnp_tpu.mesh import (
     uniform_interval_mesh,
     write_dolfin_xml,
 )
-from gmpnp_tpu.mesh.core import (
+from gmpnp.mesh.core import (
     boundary_facets,
     reorder_by_coordinate,
     vertex_adjacency,

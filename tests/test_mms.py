@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gmpnp_tpu.fem import DirichletBC, FemSpace, WeakForm
-from gmpnp_tpu.mesh import cylinder_mesh, pore_boundary_markers, uniform_interval_mesh
-from gmpnp_tpu.solve.timeloop import (
+from gmpnp.fem import DirichletBC, FemSpace, WeakForm
+from gmpnp.mesh import cylinder_mesh, pore_boundary_markers, uniform_interval_mesh
+from gmpnp.solve.timeloop import (
     LinearConfig,
     NewtonConfig,
     make_implicit_step,

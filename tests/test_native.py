@@ -5,8 +5,8 @@ import gzip
 import numpy as np
 import pytest
 
-from gmpnp_tpu import native
-from gmpnp_tpu.mesh import cylinder_mesh, uniform_interval_mesh, write_dolfin_xml
+from gmpnp import native
+from gmpnp.mesh import cylinder_mesh, uniform_interval_mesh, write_dolfin_xml
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library not built")
@@ -22,7 +22,7 @@ def test_parse_dolfin_xml_roundtrip(tmp_path):
 
 
 def test_parse_reference_mesh(reference_utilities):
-    from gmpnp_tpu.mesh import read_dolfin_xml
+    from gmpnp.mesh import read_dolfin_xml
 
     # read_dolfin_xml routes through the native parser when available
     m = read_dolfin_xml(str(reference_utilities / "L_50_R_5.xml"))
@@ -38,7 +38,7 @@ def test_parse_reference_mesh(reference_utilities):
 
 
 def test_boundary_facets_matches_python():
-    from gmpnp_tpu.mesh.core import _cell_facets
+    from gmpnp.mesh.core import _cell_facets
 
     m = cylinder_mesh(50e-9, 5e-9, n_rings=2, n_layers=5)
     nat_f, nat_o = native.boundary_facets(m.cells)

@@ -17,10 +17,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gmpnp_tpu.fem import DirichletBC, FemSpace, WeakForm
-from gmpnp_tpu.mesh import cylinder_mesh, pore_boundary_markers
-from gmpnp_tpu.models import pore_3d
-from gmpnp_tpu.solve.timeloop import (
+from gmpnp.fem import DirichletBC, FemSpace, WeakForm
+from gmpnp.mesh import cylinder_mesh, pore_boundary_markers
+from gmpnp.models import pore_3d
+from gmpnp.solve.timeloop import (
     LinearConfig,
     NewtonConfig,
     make_implicit_step,
@@ -75,7 +75,7 @@ def test_sechenov_theta_update():
     th0 = prog._theta_of_carry((u_bulk, None), 0)
     # at bulk concentrations the S1 value equals the Sechenov-capped
     # saturation over bulk CO2
-    from gmpnp_tpu.chem.henry import co2_saturation_conc
+    from gmpnp.chem.henry import co2_saturation_conc
     ions = {s: prog.bulk_conc[s] for s in ("OH", "HCO3", "CO32", "K")}
     expect = float(co2_saturation_conc(
         prog.params.sys_params.T, prog.fugacity_CO2, ions, prog.params))
@@ -97,7 +97,7 @@ def test_cross_model_physical_direction():
     (GMPNP resolves a genuine space-charge transient the electroneutral
     model cannot; the reference positions these as comparison models,
     README.md:11)."""
-    from gmpnp_tpu.solve.timeloop import LinearConfig
+    from gmpnp.solve.timeloop import LinearConfig
 
     n = 6
     # the corrected-flux GMPNP system needs the stronger SSOR preconditioner
@@ -276,7 +276,7 @@ def test_chord_predictor_cuts_warm_iterations():
 @pytest.mark.slow
 def test_carried_factor_checkpoint_resume(tmp_path):
     """The carried factorization is derived data: a checkpointed carried
-    run resumes from the orbax state (rebuilding the factor) and matches
+    run resumes from the checkpointed state (rebuilding the factor) and matches
     an uninterrupted carried run."""
     import dataclasses as dc
 
@@ -317,7 +317,7 @@ def test_carried_factor_with_recovery_converges():
 
 
 def test_auto_refresh_resolves_and_converges():
-    """refresh='auto' (VERDICT r4 item 3): the run times a warm window of
+    """refresh='auto': the run times a warm window of
     both the carried and exact step programs (timeloop.calibrate_refresh),
     resolves to a concrete mode, records the choice, and the transient
     converges like either hand-picked mode."""
@@ -336,7 +336,7 @@ def test_auto_refresh_resolves_and_converges():
 
 
 def test_dt_first_scale_staging(tmp_path):
-    """First-class staged first step (VERDICT r4 item 5; the 3D form of
+    """First-class staged first step (the 3D form of
     the reference's 1D staged-dt schedule, 1D/MPNP_CO2ER_EDL.py:270-290):
     theta carries dt*scale for the first dt_first_steps steps and the
     full dt after; the output time axis reflects the actual schedule and

@@ -7,7 +7,7 @@ import os
 import numpy as np
 import pytest
 
-from gmpnp_tpu.chem.bulk import load_bulk_yaml
+from gmpnp.chem.bulk import load_bulk_yaml
 
 
 @pytest.fixture()
@@ -17,7 +17,7 @@ def util_env(reference_utilities, monkeypatch):
 
 
 def test_rxn_diff_uses_reference_mesh_and_bulk(util_env):
-    from gmpnp_tpu.models import rxn_diff_1d as rd
+    from gmpnp.models import rxn_diff_1d as rd
 
     prog = rd.build(rd.RxnDiff1DConfig(L_n=1.0e-6))
     # the shipped 1um mesh has 1091 vertices
@@ -30,7 +30,7 @@ def test_rxn_diff_uses_reference_mesh_and_bulk(util_env):
 
 
 def test_pore_uses_reference_mesh_and_bulk(util_env):
-    from gmpnp_tpu.models import pore_3d
+    from gmpnp.models import pore_3d
 
     cfg = pore_3d.Pore3DConfig(physics="GMPNP", L=50e-9, R=5e-9)
     prog = pore_3d.build(cfg)
@@ -42,7 +42,7 @@ def test_pore_uses_reference_mesh_and_bulk(util_env):
 
 
 def test_params_file_resolution(util_env):
-    from gmpnp_tpu.models.base import load_params
+    from gmpnp.models.base import load_params
 
     p = load_params("parameters_pore")     # bare name -> defaults
     assert p.henry_const["CO2"] == 0.034
@@ -55,7 +55,7 @@ def test_params_file_resolution(util_env):
 def test_generated_equals_reference_mesh_solution(util_env, monkeypatch):
     """Same short transient on the shipped 1um mesh vs our generated mesh:
     identical grading => near-identical fields (vertex sets coincide)."""
-    from gmpnp_tpu.models import rxn_diff_1d as rd
+    from gmpnp.models import rxn_diff_1d as rd
 
     prog_ref = rd.build(rd.RxnDiff1DConfig(L_n=1.0e-6))
     monkeypatch.delenv("GMPNP_UTILITIES")
@@ -80,7 +80,7 @@ def test_default_params_equal_reference_pore_yaml_everywhere(util_env):
     parameters_pore.yaml:1-86)."""
     from dataclasses import fields, is_dataclass
 
-    from gmpnp_tpu.constants import DEFAULT_PARAMS, load_parameters
+    from gmpnp.constants import DEFAULT_PARAMS, load_parameters
 
     ref = load_parameters(str(util_env / "parameters_pore.yaml"))
 
@@ -102,7 +102,7 @@ def test_default_params_equal_reference_pore_yaml_everywhere(util_env):
 def test_1d_parameters_yaml_loads_with_shared_fields(util_env):
     """The 1D utilities/parameters.yaml also loads; fields shared with the
     pore file agree with the defaults."""
-    from gmpnp_tpu.constants import DEFAULT_PARAMS, load_parameters
+    from gmpnp.constants import DEFAULT_PARAMS, load_parameters
 
     p = load_parameters(str(util_env / "parameters.yaml"))
     d = DEFAULT_PARAMS

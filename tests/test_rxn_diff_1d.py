@@ -15,7 +15,7 @@ import dataclasses
 import numpy as np
 import pytest
 
-from gmpnp_tpu.models import rxn_diff_1d as rd
+from gmpnp.models import rxn_diff_1d as rd
 
 
 @pytest.fixture(scope="module")
@@ -44,8 +44,8 @@ def test_constant_flux_linear_steady_state(small_cfg):
     kin_free_theta = dict(prog.theta)
 
     import jax.numpy as jnp
-    from gmpnp_tpu.fem import WeakForm
-    from gmpnp_tpu.solve.timeloop import make_implicit_step, run_transient
+    from gmpnp.fem import WeakForm
+    from gmpnp.solve.timeloop import make_implicit_step, run_transient
 
     nf = len(rd.SPECIES)
 

@@ -8,10 +8,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gmpnp_tpu.fem import DirichletBC, FemSpace
-from gmpnp_tpu.fem.assembly import BlockELL
-from gmpnp_tpu.mesh import cylinder_mesh, pore_boundary_markers
-from gmpnp_tpu.solve.slab import (
+from gmpnp.fem import DirichletBC, FemSpace
+from gmpnp.fem.assembly import BlockELL
+from gmpnp.mesh import cylinder_mesh, pore_boundary_markers
+from gmpnp.solve.slab import (
     SlabPlan,
     slab_direct_solve,
     slab_factor,
@@ -156,7 +156,7 @@ def test_slab_apply_f32_direction_quality():
     reaches ~tol-quality directions on an equilibration-stressed system —
     accurate far beyond what a chord iteration needs (its error budget is
     Jacobian staleness, ~1e-2-level)."""
-    from gmpnp_tpu.solve.slab import slab_apply_f32, slab_prepare
+    from gmpnp.solve.slab import slab_apply_f32, slab_prepare
 
     space = _pore_space(n_fields=3)
     f = 3
@@ -187,8 +187,8 @@ def test_slab_apply_f32_direction_quality():
 def test_newton_step_slab_vs_bicgstab():
     """One implicit 3D GMPNP step with kind='slab_direct' matches the
     round-1 BiCGStab path to Krylov-tolerance accuracy."""
-    from gmpnp_tpu.models import pore_3d
-    from gmpnp_tpu.solve.timeloop import LinearConfig, make_implicit_step
+    from gmpnp.models import pore_3d
+    from gmpnp.solve.timeloop import LinearConfig, make_implicit_step
 
     cfg = pore_3d.Pore3DConfig(physics="GMPNP", L=100e-9, R=10e-9,
                                mesh_resolution=(2, 8))
@@ -218,12 +218,12 @@ def test_newton_step_slab_vs_bicgstab():
 
 @pytest.mark.slow
 def test_newton_step_slab_vs_dense_1e8():
-    """BASELINE.md parity bar (VERDICT item 8b): one implicit 3D GMPNP
+    """BASELINE.md parity bar: one implicit 3D GMPNP
     step solved with the production slab_direct path agrees with the
     dense-f64-direct oracle to <= 1e-8 relative L2 on every field, at
     production Newton tolerances (ref 3D/MPNP_CO2ER_pore.py:789-799)."""
-    from gmpnp_tpu.models import pore_3d
-    from gmpnp_tpu.solve.timeloop import LinearConfig, make_implicit_step
+    from gmpnp.models import pore_3d
+    from gmpnp.solve.timeloop import LinearConfig, make_implicit_step
 
     cfg = pore_3d.Pore3DConfig(physics="GMPNP", L=100e-9, R=10e-9,
                                mesh_resolution=(2, 8))
@@ -259,8 +259,8 @@ def test_newton_step_frozen_factorization_refresh_step():
     time step, solve.slab.SlabPrepared) converges to the same solution as
     exact Newton — convergence is certified on the true f64 residual
     either way — within a few extra (cheap) iterations."""
-    from gmpnp_tpu.models import pore_3d
-    from gmpnp_tpu.solve.timeloop import LinearConfig, make_implicit_step
+    from gmpnp.models import pore_3d
+    from gmpnp.solve.timeloop import LinearConfig, make_implicit_step
 
     cfg = pore_3d.Pore3DConfig(physics="GMPNP", L=100e-9, R=10e-9,
                                mesh_resolution=(2, 8))
@@ -305,7 +305,7 @@ def test_newton_step_frozen_factorization_refresh_step():
 def test_slab_factor_fused_matches_unfused():
     """slab_factor_fused (per-slab gather inside the elimination scan —
     the HBM-safe path) produces the same factors as bands() + slab_factor."""
-    from gmpnp_tpu.solve.slab import slab_factor, slab_factor_fused
+    from gmpnp.solve.slab import slab_factor, slab_factor_fused
 
     space = _pore_space(n_fields=3)
     ell = _random_ell(space, 3, seed=7)
@@ -327,7 +327,7 @@ def test_slab_cr_matches_thomas_and_numpy():
     """Slab-granular block cyclic reduction (slab_factor_cr/slab_solve_cr)
     equals block-Thomas and the dense solve for every slab count parity
     (S odd/even/1/2) and for vector and matrix right-hand sides."""
-    from gmpnp_tpu.solve.slab import slab_factor_cr, slab_solve_cr
+    from gmpnp.solve.slab import slab_factor_cr, slab_solve_cr
 
     rng = np.random.default_rng(11)
     m = 16
@@ -386,7 +386,7 @@ def test_slab_direct_solve_cr_mode_assembled_jacobian():
     np.testing.assert_allclose(np.asarray(res_cr.x), np.asarray(res_th.x),
                                rtol=1e-8, atol=1e-10)
 
-    from gmpnp_tpu.solve.timeloop import LinearConfig, _validate_linear_config
+    from gmpnp.solve.timeloop import LinearConfig, _validate_linear_config
     _validate_linear_config(LinearConfig(kind="slab_direct", slab_mode="cr"))
     with pytest.raises(ValueError, match="slab_mode"):
         _validate_linear_config(

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gmpnp_tpu.solve.smallblock import (
+from gmpnp.solve.smallblock import (
     block_inv,
     block_solve,
     triangular_solve_upper,

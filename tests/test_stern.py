@@ -4,7 +4,7 @@ linear model algebra, sweep outputs."""
 import numpy as np
 import pytest
 
-from gmpnp_tpu.models import stern
+from gmpnp.models import stern
 
 
 def _odeint_reference(voltage_scaled_OHP, field_OHP, eps_rel_OHP,

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gmpnp_tpu.models import edl_1d
+from gmpnp.models import edl_1d
 
 
 def test_staged_dt_schedule_values():
@@ -61,7 +61,7 @@ def test_record_stride_matches_full_history():
     import jax.numpy as jnp
     import numpy as np
 
-    from gmpnp_tpu.solve.timeloop import StepStats, run_transient
+    from gmpnp.solve.timeloop import StepStats, run_transient
 
     def step(u, theta):
         stats = StepStats(jnp.array(1, jnp.int32), jnp.asarray(True),
@@ -84,53 +84,28 @@ def test_record_stride_matches_full_history():
 
 def test_linear_config_validation():
     """Unrecognized string knobs fail fast instead of silently selecting a
-    default path (ADVICE r2: refresh='Step' silently ran exact Newton;
-    matvec='pallas' with solve_dtype='f64' was silently ignored)."""
+    default path (refresh='Step' would otherwise run exact Newton)."""
     import pytest
 
-    from gmpnp_tpu.solve.timeloop import LinearConfig, _validate_linear_config
+    from gmpnp.solve.timeloop import LinearConfig, _validate_linear_config
 
     _validate_linear_config(LinearConfig())  # defaults are valid
     for bad in (dict(kind="nope"), dict(refresh="Step"),
-                dict(matvec="Pallas"), dict(precond="ilu"),
+                dict(slab_mode="lu"), dict(precond="ilu"),
                 dict(jac_dtype="f16"), dict(solve_dtype="f16"),
-                dict(chord_dtype="bf16"),
-                dict(matvec="pallas")):   # pallas requires solve_dtype=f32
+                dict(chord_dtype="bf16")):
         with pytest.raises(ValueError):
             _validate_linear_config(LinearConfig(**bad))
-    # the valid pallas combination passes
-    _validate_linear_config(LinearConfig(kind="gmres", matvec="pallas",
-                                         solve_dtype="f32"))
-
-
-def test_tpu_ssor_gate(monkeypatch):
-    """Selecting precond='ssor' inside a Krylov Newton solve on TPU must
-    raise instead of kernel-faulting the worker (VERDICT r2 item 8; the
-    fault is documented in docs/TPU_NOTES.md).  The backend is
-    monkeypatched — the gate keys off jax.default_backend()."""
-    import pytest
-
-    from gmpnp_tpu.solve import timeloop
-    from gmpnp_tpu.solve.timeloop import LinearConfig, _validate_linear_config
-
-    monkeypatch.setattr(timeloop.jax, "default_backend", lambda: "tpu")
-    monkeypatch.delenv("GMPNP_ALLOW_TPU_SSOR", raising=False)
-    for kind in ("gmres", "bicgstab"):
-        with pytest.raises(ValueError, match="kernel-faults"):
-            _validate_linear_config(LinearConfig(kind=kind, precond="ssor"))
-    # explicit override re-enables it for probing
-    monkeypatch.setenv("GMPNP_ALLOW_TPU_SSOR", "1")
-    _validate_linear_config(LinearConfig(kind="gmres", precond="ssor"))
-    # and SSOR on CPU (the tested path) stays allowed
-    monkeypatch.setattr(timeloop.jax, "default_backend", lambda: "cpu")
-    monkeypatch.delenv("GMPNP_ALLOW_TPU_SSOR", raising=False)
-    _validate_linear_config(LinearConfig(kind="bicgstab", precond="ssor"))
+    # every preconditioner is accepted on every backend
+    for precond in ("block_jacobi", "ssor", "amg"):
+        _validate_linear_config(LinearConfig(kind="gmres", precond=precond,
+                                             solve_dtype="f32"))
 
 
 def test_newton_loop_validation():
     import pytest
 
-    from gmpnp_tpu.solve.newton import newton_solve
+    from gmpnp.solve.newton import newton_solve
 
     with pytest.raises(ValueError):
         newton_solve(lambda u: u, lambda u, r: (r, 0),
@@ -138,7 +113,7 @@ def test_newton_loop_validation():
 
 
 def test_auto_record_stride():
-    from gmpnp_tpu.models.base import auto_record_stride
+    from gmpnp.models.base import auto_record_stride
 
     assert auto_record_stride(100) == 1
     assert auto_record_stride(1000) == 1
@@ -152,9 +127,8 @@ def test_auto_record_stride():
 
 def test_recovering_step_dt_scale():
     """make_recovering_step records the accepted dt halving in
-    StepStats.dt_scale (VERDICT r2 item 3: recovery wired into
-    production)."""
-    from gmpnp_tpu.solve.timeloop import StepStats, make_retrying_step
+    StepStats.dt_scale (recovery wired into production)."""
+    from gmpnp.solve.timeloop import StepStats, make_retrying_step
 
     calls = []
 

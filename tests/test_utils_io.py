@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gmpnp_tpu.utils import PhaseTimer, StepLogger
+from gmpnp.utils import PhaseTimer, StepLogger
 
 
 class FakeStats:
@@ -45,7 +45,7 @@ def test_phase_timer():
 
 
 def test_checkpoint_resume(tmp_path):
-    from gmpnp_tpu.io.checkpoint import (
+    from gmpnp.io.checkpoint import (
         TransientCheckpointer,
         run_transient_checkpointed,
     )
@@ -83,8 +83,8 @@ def test_vtu_readable_by_reference_tools(tmp_path):
     """VTU output parses as valid XML with consistent sizes."""
     import xml.etree.ElementTree as ET
 
-    from gmpnp_tpu.io.vtk import write_pvd, write_vtu
-    from gmpnp_tpu.mesh import cylinder_mesh
+    from gmpnp.io.vtk import write_pvd, write_vtu
+    from gmpnp.mesh import cylinder_mesh
 
     m = cylinder_mesh(50e-9, 5e-9, n_rings=2, n_layers=4)
     p = tmp_path / "f.vtu"
